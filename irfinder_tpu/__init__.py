@@ -1,9 +1,9 @@
-"""irfinder_tpu — a TPU-native intron-retention quantification engine.
+"""irfinder_tpu — an accelerator-native intron-retention quantification engine.
 
 A from-scratch framework with the capabilities of IRFinder (formerly
 williamritchie/IRFinder; the mounted snapshot /root/reference/README.md:1-7 is
 a repository-moved tombstone — see SURVEY.md for the full reconstruction).
-Architecture: batched columnar counting on TPU via JAX/XLA/Pallas, a native
+Architecture: batched columnar counting on the GPU via JAX/XLA, a native
 C++ host BAM decoder, and mesh-sharded integer counters merged with XLA
 collectives.
 """

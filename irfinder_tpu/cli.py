@@ -316,7 +316,7 @@ def cmd_fastq(args) -> int:
         sys.stderr.write(
             "FastQ mode needs --aligner-cmd (external aligner writing an\n"
             "unsorted BAM to stdout); alignment itself is external to the\n"
-            "TPU engine.  Alternatively align separately and use BAM mode.\n"
+            "counting engine.  Alternatively align separately and use BAM mode.\n"
         )
         return 2
     ref = CompiledRef.load(args.ref)
@@ -433,8 +433,9 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument(
         "--mesh",
         help="sharded counting: dp=N,genome=G[,routed] — read stream over N "
-        "devices x intron map over G shards (genome=G with one device runs "
-        "the single-chip binned form); outputs byte-identical to unsharded",
+        "devices x intron map over G shards (genome=G with fewer than G "
+        "devices runs the single-device binned form); outputs byte-identical "
+        "to unsharded",
     )
     c.add_argument(
         "--long-reads", dest="long_reads", action="store_true",
@@ -547,6 +548,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .backend import init_compile_cache
+
+    init_compile_cache()
     return args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Pooled small-replicate differential IR between two conditions.
 
-TPU-era replacement for the reference's bin/analysisWithLowReplicates.pl
+Replacement for the reference's bin/analysisWithLowReplicates.pl
 (SURVEY.md §2 row 19, §3.5 [R]): pool replicate counts per condition, test
 each intron's (intronic vs spliced) counts between pools with the
 Audic–Claverie exact test (irfinder_tpu.winflat), and audit per-replicate

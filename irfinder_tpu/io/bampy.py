@@ -36,7 +36,7 @@ class BamHeader:
     ref_names: list
     ref_lengths: list
     #: refid -> compiled chrom id LUT (int32, -1 unknown), filled by the
-    #: decoders; the wire-format step derives frag_chrom from it on device
+    #: decoders
     chrom_lut: object = None
 
 

@@ -4,7 +4,7 @@ The one counter that stays on the host (ops/step.py docstring): observed
 splice junctions have sparse dynamic (chrom, start, end) keys that do not map
 to dense device scatter targets, so the engine tallies them host-side.  The
 reference incremented a std::map per gap (SURVEY.md §2 row 10, historical
-src/irfinder/ReadBlockProcessor.cpp [R]); the first TPU build used a Python
+src/irfinder/ReadBlockProcessor.cpp [R]); the first build here used a Python
 dict with a per-unique-key loop per batch, which became the bottleneck on
 realistic spliced-read mixes (~25-35% of RNA-seq reads carry N CIGAR ops).
 

@@ -16,9 +16,13 @@ def native_lib_path(component: str, libname: str) -> str:
     return os.path.join(_NATIVE_ROOT, component, libname)
 
 
-def ensure_built(component: str, libname: str, quiet: bool = True) -> str:
-    """Build the component with make if its .so is missing/stale; returns the
-    library path.  Raises RuntimeError when the toolchain build fails."""
+def ensure_built(
+    component: str, libname: str, quiet: bool = True, also: tuple = ()
+) -> str:
+    """Build the component with make if its .so — or any of the other
+    build outputs named in `also` (e.g. a standalone binary) — is missing
+    or older than a source; returns the library path.  Raises RuntimeError
+    when the toolchain build fails."""
     path = native_lib_path(component, libname)
     src_dir = os.path.dirname(path)
     srcs = [
@@ -26,8 +30,11 @@ def ensure_built(component: str, libname: str, quiet: bool = True) -> str:
         for f in os.listdir(src_dir)
         if f.endswith((".cpp", ".h", ".c"))
     ]
-    stale = not os.path.exists(path) or any(
-        os.path.getmtime(s) > os.path.getmtime(path) for s in srcs
+    outs = [path] + [os.path.join(src_dir, o) for o in also]
+    stale = any(
+        not os.path.exists(o)
+        or any(os.path.getmtime(s) > os.path.getmtime(o) for s in srcs)
+        for o in outs
     )
     if stale:
         r = subprocess.run(

@@ -15,7 +15,7 @@ from typing import Iterator
 import numpy as np
 
 from ..io.bampy import BamHeader, DecodeStats
-from ..io.batch import PackedBatch, pack_wire_cols
+from ..io.batch import PackedBatch
 from .. import semantics as S
 from . import ensure_built
 
@@ -87,10 +87,6 @@ def _fill_col(dst: np.ndarray, ptr, n_used: int) -> None:
         dst[:n_used] = np.ctypeslib.as_array(ptr, shape=(n_used,))
 
 
-def _view(ptr, n: int) -> np.ndarray:
-    return np.ctypeslib.as_array(ptr, shape=(n,))
-
-
 def decode_bam_native(
     path: str,
     chrom_index: dict,
@@ -99,7 +95,6 @@ def decode_bam_native(
     resume_token: bytes | None = None,
     blocks_per_frag: int = 3,
     gaps_per_frag: int = 1,
-    full_columns: bool = True,
 ):
     """Native analog of io.bampy.decode_bam, file-path based.
 
@@ -121,7 +116,7 @@ def decode_bam_native(
         resume_token, len(resume_token) if resume_token else 0,
         blocks_per_frag, gaps_per_frag,
     )
-    return _wrap_handle(lib, h, chrom_index, full_columns)
+    return _wrap_handle(lib, h, chrom_index)
 
 
 def decode_bam_native_fd(
@@ -132,7 +127,6 @@ def decode_bam_native_fd(
     blocks_per_frag: int = 3,
     gaps_per_frag: int = 1,
     tee_fd: int = -1,
-    full_columns: bool = True,
 ):
     """Streaming analog of decode_bam_native: count straight off a file
     descriptor carrying a BGZF BAM stream (the aligner pipe in FastQ
@@ -149,10 +143,10 @@ def decode_bam_native_fd(
         S.FLAG_DROP_MASK, S.MIN_MAPQ, S.MIN_GAP_AS_JUNCTION,
         blocks_per_frag, gaps_per_frag, tee_fd,
     )
-    return _wrap_handle(lib, h, chrom_index, full_columns)
+    return _wrap_handle(lib, h, chrom_index)
 
 
-def _wrap_handle(lib, h, chrom_index: dict, full_columns: bool = True):
+def _wrap_handle(lib, h, chrom_index: dict):
     err = lib.bd_error(h)
     if err:
         msg = err.decode()
@@ -185,41 +179,18 @@ def _wrap_handle(lib, h, chrom_index: dict, full_columns: bool = True):
                 pb = PackedBatch.empty(
                     int(view.cap_blocks), int(view.cap_gaps), int(view.cap_frags)
                 )
-                cols = [
+                for nm, n in (
                     ("gap_chrom", ng), ("gap_start", ng),
                     ("gap_end", ng), ("gap_strand", ng),
-                ]
-                if full_columns:
-                    cols += [
-                        ("blk_chrom", nb), ("blk_start", nb),
-                        ("blk_end", nb), ("blk_strand", nb),
-                        ("frag_chrom", nf), ("frag_refid", nf),
-                        ("frag_start", nf), ("frag_end", nf),
-                        ("frag_strand", nf), ("frag_nblk", nf),
-                    ]
-                for nm, n in cols:
+                    ("blk_chrom", nb), ("blk_start", nb),
+                    ("blk_end", nb), ("blk_strand", nb),
+                    ("frag_chrom", nf), ("frag_refid", nf),
+                    ("frag_start", nf), ("frag_end", nf),
+                    ("frag_strand", nf), ("frag_nblk", nf),
+                ):
                     _fill_col(getattr(pb, nm), getattr(view, nm), n)
-                # packed wire buffer straight from the C views, ONLY on
-                # the production (column-skipping) path: full-column callers
-                # (mesh routing, CPU/eager, oracle) never read pb.wire, and
-                # pack_wire_cols' format limits (13-bit chrom, 2^18 block
-                # len) must not fail paths that don't use the wire
-                if not full_columns:
-                    pb.wire = pack_wire_cols(
-                        *(_view(getattr(view, nm), cap)
-                          for nm, cap in (
-                              ("blk_chrom", pb.cap_blocks),
-                              ("blk_start", pb.cap_blocks),
-                              ("blk_end", pb.cap_blocks),
-                              ("blk_strand", pb.cap_blocks),
-                              ("frag_refid", pb.cap_frags),
-                              ("frag_strand", pb.cap_frags),
-                              ("frag_nblk", pb.cap_frags),
-                          ))
-                    )
                 pb.n_blocks, pb.n_gaps, pb.n_frags = nb, ng, nf
                 pb.n_reads = int(view.n_reads)
-                pb.columns_full = full_columns
                 need = lib.bd_token(h, None, 0)
                 tbuf = ctypes.create_string_buffer(need)
                 lib.bd_token(h, tbuf, need)

@@ -43,8 +43,9 @@ def trim1(read: bytes, adapter: bytes = ADAPTER_R1) -> int:
 
 def trim_binary() -> str:
     """Path to the standalone trim filter binary (4-file / interleaved-pipe
-    CLI), building it if stale — the FastQ-mode pre-alignment filter."""
-    ensure_built("trim", "libtrim.so")
+    CLI), building it if missing or stale — the FastQ-mode pre-alignment
+    filter."""
+    ensure_built("trim", "libtrim.so", also=("trim",))
     import os
 
     from . import _NATIVE_ROOT

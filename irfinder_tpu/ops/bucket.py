@@ -1,18 +1,16 @@
-"""Bucketed (B-tree style) device search tables — the TPU-native replacement
-for per-lane binary search.
+"""Bucketed (B-tree style) device search tables for the counting step's
+rank lookups.
 
-Why not binary search: a lexicographic binary search costs O(log N) iterations
-of *per-lane gathers* from HBM (ops/search.py, kept for CPU tests/oracles).
-Honest chained-timing on the v5e showed those gather loops dominating the
-whole counting step (~260 of ~280 ms/batch).  The TPU-friendly formulation is
-rank-by-counting: `rank(q) = #{keys <= q}`, computed with dense vectorized
-compares (VPU) plus at most a couple of *aligned row gathers* (contiguous
-128-lane rows, the layout the hardware likes), never per-lane random access.
+A lexicographic binary search costs O(log N) rounds of per-lane gathers
+(ops/search.py, kept as a test reference).  This module ranks by counting
+instead: `rank(q) = #{keys <= q}`, computed with dense vectorized compares
+plus a couple of contiguous row gathers per query.  Whether this beats a
+plain `jnp.searchsorted` on the GPU has not been measured yet.
 
 Structure (built host-side in NumPy, shipped once per run):
 
 * the sorted key table is padded with >= 1 lex-+inf sentinel row and reshaped
-  into buckets of S=128 keys (one hardware lane row each);
+  into buckets of S=128 keys;
 * level j-1 stores the *last key of each level-j bucket*; levels shrink by S
   until the top fits a single dense compare (<= top_max entries);
 * a query descends: count buckets-entirely-<=-q at the top (dense compare),

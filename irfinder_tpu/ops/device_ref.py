@@ -2,8 +2,9 @@
 
 The reference loaded its REF directory into per-chromosome std::map /
 sorted-vector processor state (SURVEY.md §2 rows 9-12, historical
-src/irfinder/main.cpp + ReadBlockProcessor*.cpp [R]); the TPU engine instead
-keeps ONE globally sorted (chrom, coord) table per lookup kind in HBM, padded
+src/irfinder/main.cpp + ReadBlockProcessor*.cpp [R]); the engine instead
+keeps ONE globally sorted (chrom, coord) table per lookup kind in device
+memory, padded
 with a single sentinel row so that
 
 * lexicographic binary search never needs per-chromosome branching,
@@ -11,9 +12,8 @@ with a single sentinel row so that
   (including batch padding with chrom == -1) are routed to index ``n`` and the
   counter arrays carry one extra trailing slot that is dropped at finalize.
 
-All columns are int32 — TPUs run 32-bit lanes natively and every genomic
-coordinate / MBS offset fits (human MBS ≈ 1.3e9 < 2^31; whole-genome maps are
-chromosome-sharded anyway, SURVEY.md §5.7).
+All columns are int32: every genomic coordinate and MBS offset fits (human
+MBS ≈ 1.3e9 < 2^31), and every device counter is an int32 too.
 """
 
 from __future__ import annotations
@@ -66,15 +66,9 @@ class DeviceRef:
     roi_chrom: jnp.ndarray
     roi_start: jnp.ndarray
     roi_end: jnp.ndarray
-    # bucketed rank tables (ops/bucket.py) — the XLA fallback search
-    # structures (used when the Pallas tables below are disabled)
+    # bucketed rank tables (ops/bucket.py)
     uspan_bt: BucketTable  # keys (chrom,start); payload (chrom,start,len,off)
     point_bt: BucketTable  # keys (chrom,coord); rank-only
-    # packed VMEM tables for the fused Pallas rank kernel
-    # (ops/pallas_rank.py); None when the table outgrows the VMEM budget,
-    # in which case the step uses the XLA bucket path above
-    rank_mbs: object = None
-    rank_point: object = None
     # static (non-pytree-leaf) metadata — usable inside jit traces
     mbs_size_static: int = 0
 
@@ -164,23 +158,6 @@ def build_device_ref(ref: CompiledRef, pads: dict | None = None, bucket: int = 1
     )
     point_bt = BucketTable.build((pt_c, pt_v), bucket=bucket)
 
-    # packed tables for the fused Pallas rank kernel, when they fit VMEM
-    from .pallas_rank import MAX_NB, build_rank_tables
-
-    rank_mbs = rank_point = None
-    n_u, n_p = int(len(u_chrom)), int(len(pt_c))
-    # the kernel packs chrom ids into two 8-bit planes (and decodes the pad
-    # sentinel as 65535), so refs with >= 60000 contigs keep the XLA path
-    if (
-        (n_u + 1) <= MAX_NB * 128
-        and (n_p + 1) <= MAX_NB * 128
-        and len(ref.chroms) < 60000
-    ):
-        rank_mbs = build_rank_tables(
-            u_chrom, u_start, "mbs", len_col=u_len, off_col=u_off
-        )
-        rank_point = build_rank_tables(pt_c, pt_v, "point")
-
     j = jnp.asarray
     return DeviceRef(
         uspan_chrom=j(uc),
@@ -195,8 +172,6 @@ def build_device_ref(ref: CompiledRef, pads: dict | None = None, bucket: int = 1
         roi_end=j(ro[2]),
         uspan_bt=uspan_bt,
         point_bt=point_bt,
-        rank_mbs=rank_mbs,
-        rank_point=rank_point,
         mbs_size_static=mbs_static,
     )
 
@@ -207,16 +182,16 @@ def mbs_rank(dref: DeviceRef, chrom: jnp.ndarray, pos: jnp.ndarray) -> jnp.ndarr
     `pos`.  Pad lanes (chrom < 0) return mbs_size (the trash rank), so a
     padded block contributes +1/-1 at the same diff slot and provably cancels.
 
-    TPU-native path: bucketed rank + one aligned payload row gather + one-hot
-    in-row select (ops/bucket.py) — no per-lane gathers anywhere.
+    Bucketed rank + one payload row gather + one-hot in-row select
+    (ops/bucket.py).
     """
     mbs = dref.uspan_off[-1]  # sentinel slot == total size (trace-safe)
     j = dref.uspan_bt.rank((chrom, pos), side="right") - 1
     pc, ps, pl, po = dref.uspan_bt.entry(j)
     same = (j >= 0) & (pc == chrom)
     within = jnp.clip(pos - ps, 0, pl)
-    # chrom -> MBS base offset, via dense one-hot select (tiny table; a
-    # per-lane gather here would reintroduce the slow pattern)
+    # chrom -> MBS base offset, via dense one-hot select over the tiny
+    # per-chrom table
     n_chroms = dref.chrom_base.shape[0]
     sel = chrom[:, None] == jax.lax.broadcasted_iota(
         jnp.int32, (1, n_chroms), 1

@@ -1,9 +1,8 @@
-"""Two-level prefix sums — the TPU-fast cumsum for genome-scale arrays.
+"""Two-level prefix sums for genome-scale int32 arrays.
 
-XLA lowers a flat 1D cumsum over N elements to ~log2(N) full-array passes
-(28 at whole-genome MBS ~ 303M: tens of GB of HBM traffic per cumsum, the
-dominant cost of the round-2 finalize).  Splitting into (N/K, K) rows costs
-log2(K) lane passes plus a tiny N/K row cumsum; results are IDENTICAL mod
+A flat 1D cumsum over N elements may lower to ~log2(N) full-array passes
+(28 at whole-genome MBS ~ 303M).  Splitting into (N/K, K) rows costs
+log2(K) row passes plus a tiny N/K row cumsum; results are IDENTICAL mod
 2^32 (addition is associative in two's-complement), so every int32
 wraparound-exactness argument in the counting/finalize path carries over
 unchanged.
@@ -17,7 +16,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-#: lanes per row of the two-level split (log2(K)=11 lane passes)
+#: elements per row of the two-level split
 PFX_K = 2048
 
 

@@ -1,272 +1,26 @@
-"""Pallas TPU scatter-add — the fused counter update, off the XLA scatter path.
+"""The two integer scatter-adds of the device path, as plain XLA.
 
-Why: XLA lowers `cnt.at[idx].add(val)` on TPU to a near-serial update loop —
-measured ~14 ns/update regardless of target size (393k updates into anything
-from 80K to 27M int32 slots all cost 3.7-5.4 ms/batch), which made the single
-fused scatter the largest op in the counting step (ops/step.py).
+* `scatter_add`: the counting step's one fused counter update
+  (`cnt.at[idx].add(val)`, ops/step.py).
+* `histogram`: the finalize statistics' per-intron depth histogram
+  (`zeros(n).at[idx].add(1)`, ops/finalize_stats.py).
 
-TPU-native reformulation (this module):
-
-1. sort the updates by target index on device (XLA `sort_key_val`, ~1.8 ms),
-2. bin them to contiguous cnt *tiles* of TILE=65536 int32 entries with one
-   tiny `searchsorted` over the tile boundaries,
-3. a Pallas kernel sweeps cnt tile-by-tile through VMEM and applies each
-   tile's updates as **one-hot int8 matmuls on the MXU**: for a window of
-   W=1024 sorted updates, A^T[r,q] = (row(q)==r) and B[q,l] = onehot(lane(q))
-   * val(q), so `acc += A^T @ B` scatters the whole window exactly
-   ((TILE/128, W) @ (W, 128) int8 -> int32; integer MXU accumulate is exact).
-
-Both one-hot factors are built in-kernel from the sorted index stream with
-broadcasted-iota compares; B is built TRANSPOSED (lane layout, which the VPU
-can produce directly — TPU has no sublane reshape) and the dot contracts
-both operands on the update axis.
-
-Everything is integer and each update is applied exactly once, so the result
-is bit-identical to the XLA scatter (tested against it and against NumPy in
-tests/test_scatter.py) and all determinism guarantees of ops/step.py hold.
-
-Reference parity: this implements the counter-increment half of the
-historical per-fragment processor chain (SURVEY.md §2 rows 10-14) — the
-reference's `map[key]++` becomes sort + MXU one-hot accumulate.
+On the GPU XLA lowers both to atomic adds.  Integer addition is associative,
+so the result does not depend on the order in which the atomics land: every
+count is bit-identical to np.add.at / np.bincount (tests/test_scatter.py).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-#: cnt entries per tile (must be a multiple of 128; 512 rows x 128 lanes).
-TILE = 512 * 128
-#: updates per kernel window.
-W = 1024
-
-
-def pad_len(n: int) -> int:
-    """Round a counter array length up to a TILE multiple (init_counters pads
-    cnt so the kernel's tile grid covers it exactly; trailing pad slots are
-    never addressed and finalize ignores them)."""
-    return -(-n // TILE) * TILE
-
-
-def _apply_kernel(offs_ref, idx_hbm, val_hbm, cnt_in, cnt_out, idx_s, val_s, acc, sem_i, sem_v):
-    t = pl.program_id(0)
-    u0 = offs_ref[t]
-    u1 = offs_ref[t + 1]
-    rows = TILE // 128  # 512
-
-    acc[:] = jnp.zeros_like(acc)
-
-    w_start = u0 // W
-    w_end = (u1 + W - 1) // W
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (rows, W), 0)
-    lane_iota = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1)
-    lane_iota_t = jax.lax.broadcasted_iota(jnp.int32, (128, W), 0)
-    base = t * TILE
-
-    # double-buffered window stream: the (w+1)-window DMA runs while window w
-    # computes — the serial start/wait version paid the full copy latency per
-    # window, which dominated at ~4 KB/transfer
-    @pl.when(w_start < w_end)
-    def _prefetch_first():
-        pltpu.make_async_copy(idx_hbm.at[w_start], idx_s.at[0], sem_i.at[0]).start()
-        pltpu.make_async_copy(val_hbm.at[w_start], val_s.at[0], sem_v.at[0]).start()
-
-    def body(w, _):
-        slot = (w - w_start) % 2
-        nslot = 1 - slot
-        pltpu.make_async_copy(idx_hbm.at[w], idx_s.at[slot], sem_i.at[slot]).wait()
-        pltpu.make_async_copy(val_hbm.at[w], val_s.at[slot], sem_v.at[slot]).wait()
-
-        @pl.when(w + 1 < w_end)
-        def _prefetch_next():
-            pltpu.make_async_copy(idx_hbm.at[w + 1], idx_s.at[nslot], sem_i.at[nslot]).start()
-            pltpu.make_async_copy(val_hbm.at[w + 1], val_s.at[nslot], sem_v.at[nslot]).start()
-
-        gpos = w * W + lane_iota  # (1, W) global update positions
-        valid = (gpos >= u0) & (gpos < u1)
-        idx = idx_s[slot].reshape(1, W)
-        rq = (idx - base) >> 7  # (1, W) tile-local rows
-        a_t = jnp.where((row_iota == rq) & valid, 1, 0).astype(jnp.int8)
-        # B transposed, built in lane layout (no sublane reshape on TPU):
-        # B_T[l, q] = onehot(lane(q)) * val(q); contract both operands on q
-        b_t = jnp.where(lane_iota_t == (idx & 127), val_s[slot].reshape(1, W), 0).astype(jnp.int8)
-        acc[:] += jax.lax.dot_general(
-            a_t,
-            b_t,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        return 0
-
-    jax.lax.fori_loop(w_start, w_end, body, 0)
-    cnt_out[:] = cnt_in[:] + acc[:]
-
-
-def scatter_add_pallas(cnt, idx, val, interpret: bool = False):
-    """cnt.at[idx].add(val), TPU-native.
-
-    cnt:  int32 (M,) with M a multiple of TILE (ops/step.py pads via pad_len)
-    idx:  int32 (N,) targets; entries may equal any in-range slot (trash slots
-          included); out-of-range sentinels must be >= M
-    val:  int32 (N,) in {-1, +1} (the diff-array update alphabet; int8 B
-          one-hot carries the sign exactly)
-    """
-    M = cnt.shape[0]
-    assert M % TILE == 0, "cnt must be padded to a TILE multiple (pad_len)"
-    T = M // TILE
-    N = idx.shape[0]
-    n_pad = -(-N // W) * W
-
-    # sort updates by target; sentinel-pad to a window multiple (sentinel M
-    # sorts last, belongs to no tile: offs[T] == first sentinel position)
-    if n_pad != N:
-        idx = jnp.concatenate([idx, jnp.full(n_pad - N, M, jnp.int32)])
-        val = jnp.concatenate([val, jnp.zeros(n_pad - N, jnp.int32)])
-    idx_s, val_s = jax.lax.sort_key_val(idx, val)
-
-    # tile offsets: first sorted position with idx >= t*TILE
-    bounds = jax.lax.iota(jnp.int32, T + 1) * TILE
-    offs = jnp.searchsorted(idx_s, bounds, side="left").astype(jnp.int32)
-
-    idx2d = idx_s.reshape(n_pad // W, 8, W // 8)
-    val2d = val_s.reshape(n_pad // W, 8, W // 8)
-
-    rows = TILE // 128
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),  # idx2d (stays in HBM, DMA'd)
-            pl.BlockSpec(memory_space=pl.ANY),  # val2d (stays in HBM, DMA'd)
-            pl.BlockSpec((rows, 128), lambda t, s: (t, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((rows, 128), lambda t, s: (t, 0), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, 8, W // 8), jnp.int32),
-            pltpu.VMEM((2, 8, W // 8), jnp.int32),
-            pltpu.VMEM((rows, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    out = pl.pallas_call(
-        _apply_kernel,
-        out_shape=jax.ShapeDtypeStruct((M // 128, 128), jnp.int32),
-        grid_spec=grid_spec,
-        input_output_aliases={3: 0},  # cnt (after the scalar-prefetch operand)
-        interpret=interpret,
-    )(offs, idx2d, val2d, cnt.reshape(M // 128, 128))
-    return out.reshape(M)
 
 
 def scatter_add(cnt, idx, val):
-    """Backend dispatch: the Pallas kernel on TPU, XLA scatter elsewhere
-    (CPU tests, interpret-free debugging).  Semantics identical.
-
-    The kernel sweeps the WHOLE cnt array through VMEM tile by tile, so its
-    cost scales with cnt size, not update count.  That is a large win at
-    per-chromosome scale (cnt ~100 MB, 0.3 ms sweep vs ~14 ns/update XLA
-    scatter), but would lose on a huge unsharded whole-genome counter
-    (cnt ~10 GB -> ~25 ms sweep/batch); when updates are that sparse
-    relative to cnt rows the XLA scatter wins, so fall back.  Genome-sharded runs keep
-    per-shard counters small and stay on the kernel."""
-    sparse = cnt.shape[0] > 64 * TILE and idx.shape[0] * 16 < cnt.shape[0] // 128
-    if cnt.shape[0] % TILE == 0 and not sparse and jax.default_backend() == "tpu":
-        return scatter_add_pallas(cnt, idx, val)
+    """cnt.at[idx].add(val) (JAX's default index handling: updates at
+    indices past the end are dropped)."""
     return cnt.at[idx].add(val)
 
 
-# ---------------------------------------------------------------------------
-# pre-binned +1 histogram scatter (finalize percentiles, ops/finalize_stats)
-# ---------------------------------------------------------------------------
-
-
-def _hist_kernel(offs_ref, idx_hbm, cnt_in, cnt_out, idx_s, acc, sem_i):
-    t = pl.program_id(0)
-    u0 = offs_ref[t]
-    u1 = offs_ref[t + 1]
-    rows = TILE // 128
-
-    acc[:] = jnp.zeros_like(acc)
-    w_start = u0 // W
-    w_end = (u1 + W - 1) // W
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (rows, W), 0)
-    lane_iota = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1)
-    lane_iota_t = jax.lax.broadcasted_iota(jnp.int32, (128, W), 0)
-    base = t * TILE
-
-    # double-buffered like _apply_kernel: window w+1's DMA overlaps window
-    # w's one-hot matmuls (the histogram streams ~1 update/base, so this
-    # kernel is the finalize-stats hot loop)
-    @pl.when(w_start < w_end)
-    def _prefetch_first():
-        pltpu.make_async_copy(idx_hbm.at[w_start], idx_s.at[0], sem_i.at[0]).start()
-
-    def body(w, _):
-        slot = (w - w_start) % 2
-        nslot = 1 - slot
-        pltpu.make_async_copy(idx_hbm.at[w], idx_s.at[slot], sem_i.at[slot]).wait()
-
-        @pl.when(w + 1 < w_end)
-        def _prefetch_next():
-            pltpu.make_async_copy(idx_hbm.at[w + 1], idx_s.at[nslot], sem_i.at[nslot]).start()
-
-        gpos = w * W + lane_iota
-        valid = (gpos >= u0) & (gpos < u1)
-        idx = idx_s[slot].reshape(1, W)
-        rq = (idx - base) >> 7
-        a_t = jnp.where((row_iota == rq) & valid, 1, 0).astype(jnp.int8)
-        b_t = (lane_iota_t == (idx & 127)).astype(jnp.int8)  # all vals are +1
-        acc[:] += jax.lax.dot_general(
-            a_t, b_t,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        return 0
-
-    jax.lax.fori_loop(w_start, w_end, body, 0)
-    cnt_out[:] = cnt_in[:] + acc[:]
-
-
-def hist_scatter_pallas(cnt, idx, tile_offs, interpret: bool = False):
-    """cnt.at[idx].add(1) for PRE-BINNED indices: idx must already be grouped
-    by cnt tile (tile t's updates contiguous at [tile_offs[t], tile_offs[t+1])
-    — true by construction for the finalize histograms, whose flat base list
-    is intron-ordered and CAP divides TILE).  No device sort.
-
-    cnt: int32 (M,), M a TILE multiple.  idx int32 (N,).  tile_offs int32
-    (M//TILE + 1,) update offsets per tile."""
-    M = cnt.shape[0]
-    assert M % TILE == 0
-    T = M // TILE
-    N = idx.shape[0]
-    n_pad = -(-max(N, 1) // W) * W
-    if n_pad != N:
-        idx = jnp.concatenate([idx, jnp.full(n_pad - N, M, jnp.int32)])
-    idx2d = idx.reshape(n_pad // W, 8, W // 8)
-
-    rows = TILE // 128
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((rows, 128), lambda t, s: (t, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((rows, 128), lambda t, s: (t, 0), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, 8, W // 8), jnp.int32),
-            pltpu.VMEM((rows, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    out = pl.pallas_call(
-        _hist_kernel,
-        out_shape=jax.ShapeDtypeStruct((M // 128, 128), jnp.int32),
-        grid_spec=grid_spec,
-        input_output_aliases={2: 0},
-        interpret=interpret,
-    )(tile_offs, idx2d, cnt.reshape(M // 128, 128))
-    return out.reshape(M)
+def histogram(n: int, idx):
+    """int32 (n,) counts of each index in idx."""
+    return jnp.zeros(n, jnp.int32).at[idx].add(1)

@@ -4,9 +4,9 @@ historical src/irfinder/ReadBlockProcessor*.cpp walked std::map/sorted vectors
 per fragment; here every query lane searches in parallel).
 
 Keys are tuples of int32 columns (e.g. (chrom, coord) or (chrom, start, end)),
-sorted lexicographically.  We avoid int64 composite keys entirely (TPUs run
-32-bit lanes natively; x64 emulation would halve throughput) by comparing the
-columns lexicographically inside the search loop.  The loop has a static bound
+sorted lexicographically.  int64 composite keys are avoided entirely (JAX
+runs without x64 by default) by comparing the columns lexicographically
+inside the search loop.  The loop has a static bound
 of ceil(log2(n))+1 iterations, so it jits to a fixed unrolled/fori program —
 no data-dependent control flow (XLA-compatible by construction).
 """

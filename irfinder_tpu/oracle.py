@@ -2,7 +2,7 @@
 semantics (SURVEY.md §7.2 step 2).
 
 A deliberately straightforward reimplementation of the reference's counting
-stage (SURVEY.md §2 rows 9-15) over PackedBatches.  The JAX/Pallas engine
+stage (SURVEY.md §2 rows 9-15) over PackedBatches.  The JAX engine
 (irfinder_tpu/ops, engine.py) must agree with this module **bit-exactly**;
 tests fuzz both against each other and against a brute-force per-base counter.
 Keep this code simple and obviously-correct — it is the arbiter, not the fast

@@ -181,8 +181,8 @@ def make_genome_sharded_step(mesh: Mesh, axis: str = "genome"):
         bspec = {k: P() for k in batch}
         fn = jax.shard_map(
             local, mesh=mesh, in_specs=(drspec, cspec, bspec), out_specs=cspec,
-            # Pallas kernels in the body carry no vma annotations; the body
-            # is purely per-shard so the varying-axes check is unnecessary
+            # the body is purely per-shard (no collectives), so the
+            # varying-axes check has nothing to verify
             check_vma=False,
         )
         return fn(dref, counters, batch)
@@ -230,8 +230,8 @@ def make_dp_genome_step(
         bspec = {k: bshard for k in batch}
         fn = jax.shard_map(
             local, mesh=mesh, in_specs=(drspec, cspec, bspec), out_specs=cspec,
-            # Pallas kernels in the body carry no vma annotations; the body
-            # is purely per-shard so the varying-axes check is unnecessary
+            # the body is purely per-shard (no collectives), so the
+            # varying-axes check has nothing to verify
             check_vma=False,
         )
         return fn(dref, counters, batch)

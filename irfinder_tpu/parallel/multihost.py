@@ -1,15 +1,15 @@
 """Multi-host execution glue (SURVEY.md §5.8; BASELINE config E).
 
 The reference has no distributed capability — one process, POSIX pipes [R].
-The TPU-native scale-out initializes one JAX process per host
+The scale-out initializes one JAX process per host
 (`jax.distributed.initialize`), builds ONE global mesh over all devices with
 axes ("dp", "genome"), and runs the same counting program everywhere:
 
 * every host decodes ITS OWN slice of the read stream (round-robin by batch
   index, or one BAM per host in batch mode) into its local dp shards;
 * the reference map is genome-sharded over the global mesh exactly as in
-  parallel/genome.py — shardings are global, XLA inserts the collectives,
-  ICI inside a slice / DCN across hosts;
+  parallel/genome.py — shardings are global, XLA inserts the collectives
+  (NVLink inside a host, the network across hosts);
 * counters are integers, so the dp merge (sum) and genome merge (concat)
   are exactly associative: results are bit-identical at any host count —
   the determinism contract tested single-process in tests/test_shard.py and
@@ -27,8 +27,8 @@ import numpy as np
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None, process_id: int | None = None) -> None:
-    """Per-host bring-up.  On TPU pods all three arguments are discovered
-    from the environment; on CPU/GPU clusters pass them explicitly."""
+    """Per-host bring-up.  Without arguments JAX discovers the cluster from
+    its environment (e.g. SLURM); elsewhere pass all three explicitly."""
     import jax
 
     if num_processes is None:

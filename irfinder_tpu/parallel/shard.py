@@ -1,7 +1,7 @@
 """Data-parallel sharding of the counting step over a jax.sharding.Mesh.
 
 The reference has no distributed capability at all — one single-threaded C++
-process, POSIX pipes (SURVEY.md §2 rows 21-22).  The TPU-native scale-out
+process, POSIX pipes (SURVEY.md §2 rows 21-22).  The scale-out
 (BASELINE.json:5,11) composes on one mesh:
 
 * axis "dp" — the read stream: every PackedBatch column array is sharded on
@@ -60,9 +60,8 @@ def make_sharded_step(mesh: Mesh, axis: str = "dp"):
         fn = jax.shard_map(
             local,
             mesh=mesh,
-            # Pallas kernels inside the body have no vma annotations on their
-            # out_shapes; disable the varying-mesh-axes check (the body is
-            # purely per-shard, no cross-shard collectives)
+            # the body is purely per-shard (no cross-shard collectives), so
+            # the varying-mesh-axes check has nothing to verify
             check_vma=False,
             in_specs=(drspec, cspec, bspec),
             out_specs=cspec,

@@ -1,6 +1,6 @@
 """Reference compiler: GTF annotation -> dense sorted coordinate tensors.
 
-TPU-native replacement for IRFinder's BuildRefProcess awk/perl pipeline
+Replacement for IRFinder's BuildRefProcess awk/perl pipeline
 (SURVEY.md §2 row 3; the mounted reference /root/reference/README.md is a
 tombstone — behavior reconstructed per SURVEY.md §0).  Instead of a directory
 of BED files, the compiler emits NumPy arrays shaped for direct device

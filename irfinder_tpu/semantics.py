@@ -1,4 +1,4 @@
-"""Counting semantics for the TPU-native intron-retention engine.
+"""Counting semantics for the intron-retention engine.
 
 EVERY behavioral constant and formula of the IR quantification lives in this
 one module so that each can be *pinned* against reference golden outputs the

@@ -132,8 +132,8 @@ def synth_batch_arrays(
     frag_end = (anchor + 500).astype(np.int32)
     # per-fragment block count, matching the assembly loop above: junction
     # fragments carry 2 mate1 blocks, others 1, plus 1 mate2 block when paired
-    # (route_flat_batch routes frag_nblk since wire v3 — a synth batch must
-    # carry every routed frag column)
+    # (route_flat_batch routes frag_nblk — a synth batch must carry every
+    # routed frag column)
     frag_nblk = (np.where(has_junc, 2, 1) + is_pair).astype(np.int32)
     return {
         "blk_chrom": blk_chrom,

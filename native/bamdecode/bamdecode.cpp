@@ -1,6 +1,6 @@
 // Native BAM decoder: BGZF -> records -> fragments -> packed columnar batches.
 //
-// TPU-host equivalent of the reference's BAM2blocks stage (SURVEY.md §2 rows
+// Host-side equivalent of the reference's BAM2blocks stage (SURVEY.md §2 rows
 // 7-8, historical src/irfinder/BAM2blocks.cpp [R] — the mounted snapshot is a
 // tombstone, behavior reconstructed; the Python decoder
 // irfinder_tpu/io/bampy.py is the executable conformance spec and
@@ -135,8 +135,7 @@ struct BatchBuf {
   std::vector<int32_t> blk_chrom, blk_start, blk_end, blk_strand;
   std::vector<int32_t> gap_chrom, gap_start, gap_end, gap_strand;
   std::vector<int32_t> frag_chrom, frag_refid, frag_start, frag_end, frag_strand;
-  std::vector<int32_t> frag_nblk;  // blocks emitted for this frag row (wire v3
-                                   // derives frag spans on device from blocks)
+  std::vector<int32_t> frag_nblk;  // blocks emitted for this frag row
   int64_t n_blocks = 0, n_gaps = 0, n_frags = 0, n_reads = 0;
   int64_t cap_blocks = 0, cap_gaps = 0, cap_frags = 0;
 
@@ -221,7 +220,7 @@ class Decoder {
   }
 
   // Streaming (pipe/fd) mode (SURVEY.md §3.2 FIFO chain — the reference's
-  // counter reads the aligner's SAM/BAM stream directly; this is the TPU
+  // counter reads the aligner's SAM/BAM stream directly; this is this
   // build's equivalent so FastQ --stream rides the SAME multithreaded
   // inflate/parse pipeline as the file path): a reader thread pulls BGZF
   // members off the fd into a bounded compressed ring; the worker pool

@@ -1,6 +1,6 @@
 // tabfmt: bulk tab-separated table emission (C ABI, ctypes-bound).
 //
-// TPU-native equivalent of the reference's C++ iostream output writers
+// Native equivalent of the reference's C++ iostream output writers
 // (SURVEY.md §2 row 16, historical src/irfinder/ReadBlockProcessor output
 // paths [R]): the engine finalizes counters into COLUMN ARRAYS, and this
 // routine renders a whole table in one GIL-released call — the per-line

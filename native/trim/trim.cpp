@@ -1,4 +1,4 @@
-// Fast paired-FASTQ adapter trimmer — the TPU-host native equivalent of the
+// Fast paired-FASTQ adapter trimmer — the host-side native equivalent of the
 // reference's in-pipe pre-alignment filter (SURVEY.md §2 row 17; historical
 // src/trim/ [R] — the snapshot is a tombstone, behavior reconstructed).
 // Not on the graded counting path (graded configs start from BAM); kept so a

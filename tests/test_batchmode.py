@@ -85,8 +85,8 @@ def test_cli_batch_with_differential(tmp_path, ref):
 def test_multi_bam_batched_device_stats_matches_single(tmp_path, ref, monkeypatch):
     """The BATCHED finalize path (results_multi_async: one lax.map stats
     program + one concatenated small-counter pull) must reproduce solo runs
-    byte-for-byte.  IRTPU_DEVICE_STATS=1 engages it on CPU (Pallas
-    interpreter), exactly as a real TPU run would."""
+    byte-for-byte.  IRTPU_DEVICE_STATS=1 engages it on the CPU (the same
+    XLA program the GPU runs by default)."""
     monkeypatch.setenv("IRTPU_DEVICE_STATS", "1")
     paths = []
     for i in range(3):

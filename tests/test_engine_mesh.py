@@ -70,9 +70,7 @@ def test_mesh_pipeline_tables_byte_identical(ref, bam_path, unsharded_out, tmp_p
 
 
 def test_binned_single_device_tables_byte_identical(ref, bam_path, unsharded_out, tmp_path):
-    """genome=G with one device: the lax.map binned form (the single-chip
-    whole-genome configuration that keeps per-bin tables inside the Pallas
-    rank kernel's budget)."""
+    """genome=G with one device: the lax.map binned form."""
     import jax
 
     out = str(tmp_path / "binned")
@@ -119,31 +117,10 @@ def test_mesh_spec_parse():
         MeshSpec.parse("tp=2")
 
 
-def test_auto_genome_bins():
-    """Whole-genome maps get a bin count whose per-bin rank tables fit the
-    Pallas VMEM budget; small maps stay unsharded (round-3 verdict #4)."""
-    from irfinder_tpu.engine_mesh import auto_genome_bins
-    from irfinder_tpu.ops.pallas_rank import MAX_NB
-    from irfinder_tpu.parallel.genome import plan_shards
-    from irfinder_tpu.synth import synth_ref
-
-    small = synth_ref(n_genes=40)
-    assert auto_genome_bins(small) == 1
-
-    big = synth_ref(n_genes=18_000, n_chroms=24, chrom_len=2_000_000_000, seed=0)
-    limit = MAX_NB * 128 - 1
-    if big.uspan_start.size <= limit and big.point_coord.size <= limit:
-        pytest.skip("synthetic map unexpectedly fits the kernel budget")
-    G = auto_genome_bins(big)
-    assert G > 1
-    pads = plan_shards(big, G).pads
-    assert pads["uspan"] <= limit and pads["point"] <= limit
-
-
-def test_binned_wire_deferred_equality(tmp_path, monkeypatch):
-    """The binned form's packed-wire deferred path (what whole-genome
-    auto-bin runs on the TPU) must match the unsharded eager run byte for
-    byte."""
+def test_binned_wire_deferred_equality(tmp_path):
+    """The explicit single-device binned form (genome=4 on one device) on a
+    realistic-mix BAM with the native decoder must match the unsharded
+    run_bam byte for byte."""
     from irfinder_tpu import engine as E
     from irfinder_tpu.engine_mesh import MeshSpec, run_bam_mesh
     from irfinder_tpu.io.bamgen import write_realistic_bam
@@ -152,11 +129,12 @@ def test_binned_wire_deferred_equality(tmp_path, monkeypatch):
     ref = synth_ref(n_genes=30)
     bam = str(tmp_path / "bw.bam")
     write_realistic_bam(bam, ref, n_pairs=6000, seed=11)
-    E.run_bam(ref, bam, str(tmp_path / "eager"))
+    import jax
 
-    monkeypatch.setenv("IRTPU_DEFER", "force")
+    E.run_bam(ref, bam, str(tmp_path / "eager"))
     run_bam_mesh(
-        ref, bam, str(tmp_path / "binned"), MeshSpec(dp=1, genome=4)
+        ref, bam, str(tmp_path / "binned"), MeshSpec(dp=1, genome=4),
+        devices=jax.devices()[:1],
     )
     for t in (
         "IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt",
@@ -169,8 +147,9 @@ def test_binned_wire_deferred_equality(tmp_path, monkeypatch):
 
 
 def test_binned_wire_deferred_checkpoint_resume(tmp_path, monkeypatch):
-    """Checkpointed binned runs under deferred execution: snapshots flush
-    the pending window first, and a resumed run completes byte-identically."""
+    """Checkpointed binned runs with a barrier after every batch (tiny
+    in-flight bound): a run interrupted after its first snapshot resumes
+    from it and completes byte-identically."""
     from irfinder_tpu import engine as E
     from irfinder_tpu.checkpoint import load_checkpoint
     from irfinder_tpu.engine_mesh import MeshSpec, run_bam_mesh
@@ -182,8 +161,11 @@ def test_binned_wire_deferred_checkpoint_resume(tmp_path, monkeypatch):
     write_realistic_bam(bam, ref, n_pairs=20000, seed=17)
     E.run_bam(ref, bam, str(tmp_path / "plain"))
 
-    monkeypatch.setenv("IRTPU_DEFER", "force")
-    monkeypatch.setattr(E, "DEFER_WINDOW_BYTES", 1 << 20)
+    import jax
+
+    import irfinder_tpu.engine_mesh as EM
+
+    monkeypatch.setattr(EM, "INFLIGHT_BYTES", 1)
     spec = MeshSpec(dp=1, genome=4)
     ck = str(tmp_path / "mesh.snap")
 
@@ -207,13 +189,13 @@ def test_binned_wire_deferred_checkpoint_resume(tmp_path, monkeypatch):
     with pytest.raises(Stop):
         run_bam_mesh(
             ref, bam, str(tmp_path / "part"), spec, cap_frags=512,
-            checkpoint=ck, checkpoint_every=2,
+            checkpoint=ck, checkpoint_every=2, devices=jax.devices()[:1],
         )
     assert load_checkpoint(ck) is not None
     monkeypatch.setattr(CK, "save_checkpoint", real_save)
     run_bam_mesh(
         ref, bam, str(tmp_path / "resumed"), spec, cap_frags=512,
-        checkpoint=ck, checkpoint_every=10**9,
+        checkpoint=ck, checkpoint_every=10**9, devices=jax.devices()[:1],
     )
     for t in (
         "IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt",

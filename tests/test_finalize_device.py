@@ -1,10 +1,12 @@
 """Device-side finalize statistics vs the host path, bit-for-bit.
 
 ops/finalize_stats.py computes per-intron coverage / mean / percentiles /
-edge windows on device (cumsum gathers + a no-sort Pallas histogram); these
-tests pin it against finalize._depth_stats_vectorized on the toy reference,
-including the saturated-histogram exact fallback (CAP monkeypatched small).
-Interpret mode on the CPU test backend.
+edge windows on device (prefix-table gathers + a depth histogram); these
+tests pin the XLA program, run on the CPU, against
+finalize._depth_stats_vectorized on the toy reference, including the
+saturated-histogram exact fallback (CAP monkeypatched small).  The device
+computes only int32 counts and the host divides them exactly as the host
+path does, so every comparison is exact equality: no tolerance applies.
 """
 
 import numpy as np
@@ -35,7 +37,7 @@ def _rand_depth(ref, seed, hot=0):
 
 def _check(ref, finref, d, subset_key, introns):
     want = _depth_stats_vectorized(ref, d.astype(np.int64))
-    got = FS.device_depth_stats(ref, finref, jnp.asarray(d), subset_key, interpret=True)
+    got = FS.device_depth_stats(ref, finref, jnp.asarray(d), subset_key)
     names = ["cov", "mean", "p25", "p50", "p75", "firstw", "lastw"]
     for name, g, w in zip(names, got, want):
         np.testing.assert_array_equal(
@@ -92,7 +94,7 @@ def test_trailing_zero_run_intron():
     )
     finref = FS.build_finalize_ref(ref2)
     d = _rand_depth(ref2, 1)
-    got = FS.device_depth_stats(ref2, finref, jnp.asarray(d), "both", interpret=True)
+    got = FS.device_depth_stats(ref2, finref, jnp.asarray(d), "both")
     want = _depth_stats_vectorized(ref2, d.astype(np.int64))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))

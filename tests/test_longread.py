@@ -126,28 +126,3 @@ def test_longread_surface_cli_geometry(tmp_path):
         assert filecmp.cmp(
             os.path.join(out0, t), os.path.join(out1, t), shallow=False
         ), t
-
-
-def test_longread_wire_roundtrip(tmp_path):
-    """Wire pack/unpack is exact under the long-read batch geometry
-    (LONGREAD_BLOCKS_PER_FRAG: tens of blocks per single-end fragment)."""
-    import numpy as np
-
-    from irfinder_tpu.engine import open_decoder
-    from irfinder_tpu.io.bamgen import write_longread_bam
-    from irfinder_tpu.io.batch import pack_wire, unpack_wire
-    from irfinder_tpu.synth import synth_ref
-
-    ref = synth_ref(n_genes=30)
-    bam = str(tmp_path / "lr.bam")
-    write_longread_bam(bam, ref, n_reads=1500, seed=7)
-    hdr, batches, _ = open_decoder(ref, bam, cap_frags=256, long_reads=True)
-    lut = np.asarray(hdr.chrom_lut, np.int32)
-    n = 0
-    for b in batches:
-        wire = b.wire if b.wire is not None else pack_wire(b)
-        got = unpack_wire(wire, b.cap_blocks, b.cap_frags, lut)
-        for k, want in b.device_arrays().items():
-            np.testing.assert_array_equal(np.asarray(got[k]), want, err_msg=k)
-        n += 1
-    assert n > 0

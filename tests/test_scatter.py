@@ -1,9 +1,12 @@
-"""Pallas scatter-add kernel vs NumPy ground truth (interpret mode on CPU).
+"""The device path's two scatter-adds (ops/scatter.py) vs NumPy ground truth.
 
-The TPU hot path (ops/scatter.py) replaces XLA's near-serial scatter with
-sort + tiled one-hot int8 MXU matmuls; these tests pin its semantics to
-np.add.at exactly — every update applied once, any duplicate multiplicity,
-sentinel-padded lanes ignored.
+`scatter_add` is the counting step's fused counter update; `histogram` builds
+the finalize statistics' per-intron depth histograms.  Both are integer
+scatter-adds, which the GPU runs as atomics in no fixed order; integer
+addition is associative, so every result must equal np.add.at / np.bincount
+exactly — every update applied once, any duplicate multiplicity.  All values
+are int32 counts, so every comparison is exact equality: no tolerance
+applies.
 """
 
 import numpy as np
@@ -12,7 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from irfinder_tpu.ops.scatter import TILE, W, pad_len, scatter_add, scatter_add_pallas
+from irfinder_tpu.ops.scatter import histogram, scatter_add
 
 
 def _truth(m, idx, val):
@@ -22,57 +25,56 @@ def _truth(m, idx, val):
 
 
 @pytest.mark.parametrize(
-    "m_raw,n,seed",
+    "m,n,seed",
     [
-        (TILE, 1000, 0),  # single tile
-        (3 * TILE + 17, 5000, 1),  # several tiles, unpadded raw length
-        (2 * TILE, 3 * W + 5, 2),  # window remainder
-        (5 * TILE, 1, 3),  # single update
+        (1 << 16, 1000, 0),  # many more slots than updates
+        (196625, 5000, 1),  # odd length
+        (131072, 3077, 2),
+        (327680, 1, 3),  # single update
     ],
 )
-def test_matches_numpy(m_raw, n, seed):
+def test_matches_numpy(m, n, seed):
+    # exact: int32 counts
     rng = np.random.default_rng(seed)
-    m = pad_len(m_raw)
-    idx = rng.integers(0, m_raw, size=n).astype(np.int32)
+    idx = rng.integers(0, m, size=n).astype(np.int32)
     val = np.where(rng.random(n) < 0.5, 1, -1).astype(np.int32)
-    got = scatter_add_pallas(
-        jnp.zeros(m, jnp.int32), jnp.asarray(idx), jnp.asarray(val), interpret=True
-    )
+    got = jax.jit(scatter_add)(jnp.zeros(m, jnp.int32), jnp.asarray(idx), jnp.asarray(val))
     np.testing.assert_array_equal(np.asarray(got), _truth(m, idx, val))
 
 
 def test_duplicates_and_hotspots():
+    # exact: int32 counts.  All updates hammer a handful of slots (the
+    # same-address atomics case), including the first and last slot.
     rng = np.random.default_rng(7)
-    m = pad_len(2 * TILE)
-    # all updates hammer a handful of slots (duplicate-heavy), crossing a
-    # tile boundary
-    slots = np.array([0, 5, TILE - 1, TILE, TILE + 1, m - 1], np.int32)
-    idx = rng.choice(slots, size=4 * W).astype(np.int32)
+    m = 1 << 17
+    slots = np.array([0, 5, 65535, 65536, 65537, m - 1], np.int32)
+    idx = rng.choice(slots, size=4096).astype(np.int32)
     val = np.where(rng.random(idx.size) < 0.5, 1, -1).astype(np.int32)
-    got = scatter_add_pallas(
-        jnp.zeros(m, jnp.int32), jnp.asarray(idx), jnp.asarray(val), interpret=True
-    )
+    got = scatter_add(jnp.zeros(m, jnp.int32), jnp.asarray(idx), jnp.asarray(val))
     np.testing.assert_array_equal(np.asarray(got), _truth(m, idx, val))
 
 
 def test_accumulates_onto_existing():
+    # exact: int32 counts
     rng = np.random.default_rng(9)
-    m = pad_len(TILE + 3)
+    m = 65539
     base = rng.integers(-50, 50, size=m).astype(np.int32)
     idx = rng.integers(0, m, size=777).astype(np.int32)
     val = np.where(rng.random(777) < 0.5, 1, -1).astype(np.int32)
-    got = scatter_add_pallas(
-        jnp.asarray(base), jnp.asarray(idx), jnp.asarray(val), interpret=True
-    )
+    got = scatter_add(jnp.asarray(base), jnp.asarray(idx), jnp.asarray(val))
     np.testing.assert_array_equal(np.asarray(got), base.astype(np.int64) + _truth(m, idx, val))
 
 
-def test_dispatch_cpu_fallback():
-    # on the CPU test backend scatter_add must route to the XLA path and
-    # agree with NumPy
+def test_histogram_matches_bincount():
+    # exact: int32 counts.  The finalize shape: intron-major bins, most
+    # updates in bin 0 of each intron (low depth), a few saturated in the
+    # last bin.
     rng = np.random.default_rng(11)
-    m = pad_len(TILE)
-    idx = rng.integers(0, m, size=500).astype(np.int32)
-    val = np.where(rng.random(500) < 0.5, 1, -1).astype(np.int32)
-    got = scatter_add(jnp.zeros(m, jnp.int32), jnp.asarray(idx), jnp.asarray(val))
-    np.testing.assert_array_equal(np.asarray(got), _truth(m, idx, val))
+    n_introns, cap = 300, 64
+    local = np.sort(rng.integers(0, n_introns, size=20_000))
+    depth = np.minimum(rng.geometric(0.6, size=local.size) - 1, cap - 1)
+    hidx = (local * cap + depth).astype(np.int32)
+    got = jax.jit(histogram, static_argnums=0)(n_introns * cap, jnp.asarray(hidx))
+    np.testing.assert_array_equal(
+        np.asarray(got), np.bincount(hidx, minlength=n_introns * cap)
+    )

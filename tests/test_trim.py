@@ -93,3 +93,23 @@ def test_filter_binary_four_files(lib, tmp_path):
     o2 = (tmp_path / "o2.fq").read_bytes().split(b"\n")
     assert o1[1] == insert and len(o1[3]) == len(insert)
     assert o2[1] == r2seq
+
+
+def test_trim_binary_rebuilt_when_missing(tmp_path, monkeypatch):
+    """The standalone trim binary is a build output (not tracked): when it
+    is missing but libtrim.so is present, ensure_built must rebuild it."""
+    import shutil
+
+    import irfinder_tpu.native as N
+
+    src = os.path.join(N._NATIVE_ROOT, "trim")
+    dst = tmp_path / "native" / "trim"
+    dst.mkdir(parents=True)
+    for f in ("Makefile", "trim.cpp"):
+        shutil.copy(os.path.join(src, f), dst / f)
+    monkeypatch.setattr(N, "_NATIVE_ROOT", str(tmp_path / "native"))
+    N.ensure_built("trim", "libtrim.so", also=("trim",))
+    assert (dst / "libtrim.so").exists() and (dst / "trim").exists()
+    (dst / "trim").unlink()
+    N.ensure_built("trim", "libtrim.so", also=("trim",))
+    assert (dst / "trim").exists()
